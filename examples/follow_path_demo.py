@@ -3,7 +3,7 @@
 Runs the full controller (pursuit → SQP solve → safety post-processing) in a
 closed loop and prints the trajectory; optionally renders an ASCII map.
 
-    python examples/follow_path_demo.py            # CPU or TPU, auto
+    python examples/follow_path_demo.py            # CPU or GPU, auto
     JAX_PLATFORMS=cpu python examples/follow_path_demo.py
 """
 

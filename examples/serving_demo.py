@@ -6,8 +6,11 @@ server solving (mpc_optimization_server.py:349-403) — over this framework's
 newline-JSON TCP transport. The "robot" here is the same omni kinematic model
 the controller assumes; the client integrates the returned command.
 
-  env -u PYTHONPATH JAX_PLATFORMS=cpu PYTHONPATH=/root/repo \
-      python examples/serving_demo.py
+  python examples/serving_demo.py      # the server uses the default device
+  JAX_PLATFORMS=cpu python examples/serving_demo.py   # CPU run
+
+Only the server child touches a device; this parent process only speaks
+the socket protocol.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 def main() -> None:
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     port = 7191
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo)
+    env = dict(os.environ, PYTHONPATH=repo)
     server = subprocess.Popen(
         [sys.executable, "-c",
          "from neo_mpc_planner2_tpu.cli import server_main; "

@@ -1,24 +1,12 @@
-"""neo_mpc_planner2_tpu — a TPU-native MPC engine for omnidirectional robots.
+"""neo_mpc_planner2_tpu — a batched MPC engine for omnidirectional robots.
 
 Brand-new JAX/XLA/Pallas re-design of the capabilities of
 neobotix/neo_mpc_planner2 (ROS 2 Nav2 pure-pursuit plugin + scipy-SLSQP
 optimization server): one pure, batched, differentiable controller step,
-vmap-able over thousands of scenarios and pjit-shardable over a TPU mesh.
+vmap-able over thousands of scenarios on one GPU and shardable over the
+cards of a host (a flat mesh: every card reaches every other over NVLink).
 See SURVEY.md for the layer map and reference citations.
 """
-
-import os as _os
-
-if _os.environ.get("NEO_MPC_COMPILE_CACHE"):
-    # Opt-in persistent XLA compilation cache. First compiles of the jitted
-    # engine take tens of seconds on remote/tunneled TPU backends; a disk
-    # cache makes every later process start warm. Env-driven so library
-    # import stays side-effect-free by default.
-    import jax as _jax
-
-    _jax.config.update("jax_compilation_cache_dir",
-                       _os.environ["NEO_MPC_COMPILE_CACHE"])
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from .config import (CompatConfig, MpcConfig, config_from_ros_params,
                      default_config, fleet_config, product_config)

@@ -55,6 +55,7 @@ def _load_params_file(path: str) -> Mapping[str, Any]:
 def server_main(argv=None) -> None:
     from .config import config_from_ros_params, default_config
     from .serving import serve
+    from .utils.compile_cache import enable_compile_cache
 
     ap = argparse.ArgumentParser(prog="neo-mpc-server")
     ap.add_argument("--host", default="127.0.0.1")
@@ -74,8 +75,8 @@ def server_main(argv=None) -> None:
     ap.add_argument("--fleet-chunk", type=int, default=4096,
                     help="max lanes per device dispatch for the fleet ops; "
                          "larger padded fleets run as sequential equal "
-                         "chunks sharing one executable (+4-8%% measured at "
-                         ">=8192 lanes, PERF.md). 0 = always one dispatch")
+                         "chunks sharing one executable. 0 = always one "
+                         "dispatch")
     ap.add_argument("--product", action="store_true",
                     help="serve PRODUCT mode: the smooth bilinear objective "
                          "+ true predicted footprint through the same SQP "
@@ -93,6 +94,7 @@ def server_main(argv=None) -> None:
     cfg = (config_from_ros_params(_load_params_file(args.params_file),
                                   base=base)
            if args.params_file else base)
+    enable_compile_cache()
     print(f"[neo-mpc-server] listening on {args.host}:{args.port}"
           + (" (product mode)" if args.product else ""), file=sys.stderr)
     serve(args.host, args.port, cfg, pipelined=args.pipelined,

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native MPC engine.
+"""Configuration for the batched MPC engine.
 
 Mirrors every ROS parameter of the reference so reference configs port 1:1:
 
@@ -124,8 +124,8 @@ class MpcConfig:
     # Transformed-plan window is padded to this many poses (static shape).
     max_plan_points: int = 128
     # Costmap sampling backend for the footprint boundary: "gather" (flat 1-D
-    # gather) or "onehot" (one-hot MXU contractions — faster at large batch on
-    # TPU, where vector gathers are scalar-emulated).
+    # gather) or "onehot" (one-hot matrix contractions, for backends without
+    # a fast vector gather; which wins on a GPU is not measured yet).
     costmap_sampling: str = "gather"
     # Cell-exact footprint boundary traversal (Amanatides-Woo grid walk, the
     # device twin of the native host / nav2 LineIterator): no cell along an
@@ -145,14 +145,13 @@ class MpcConfig:
     # Pick precision for the patch samplers' in-loop one-hot contractions
     # (ops.costmap.patch_cost_at_cells). True (default): Precision.HIGHEST —
     # picked values bit-identical to the full-map samplers on every backend.
-    # False: the backend's fast matmul path — on TPU a single bf16 pass, so
-    # picked cost values round to 8 mantissa bits (≤2^-9 relative on [0, 1]
-    # costs; CPU stays bit-exact either way). Measured at the product
-    # operating point (batch 4096, map 64, TPU v5e): exact 76.9k vs fast
-    # 103.0k solves/s (+34 %) — product_config ships False (the smooth
-    # objective has no exact-equality semantics and its quality gates were
-    # measured at the fast setting); leave True wherever the bit-identical
-    # patch guarantee is load-bearing (e.g. parity-mode patch sampling).
+    # False: the backend's default matmul precision — TF32 on an NVIDIA GPU,
+    # so picked cost values round to 10 mantissa bits (≤2^-11 relative on
+    # [0, 1] costs; CPU stays bit-exact either way). product_config ships
+    # False (the smooth objective has no exact-equality semantics;
+    # chip_smoke.py prints its goal capture at this setting); leave True
+    # wherever the bit-identical patch guarantee is load-bearing (e.g.
+    # parity-mode patch sampling).
     solver_patch_exact_picks: bool = True
     # Gather the solver's hot-loop costmap samples from a uint8 raw-scale
     # (0-255) companion buffer instead of the f32 map — 4x less random-read
@@ -161,9 +160,8 @@ class MpcConfig:
     # BIT-IDENTICAL for any map whose values lie on the raw /255 grid (all
     # nav2-sourced maps); maps with off-grid float values quantize to the
     # nearest /255 step (<= 1/510 error) — hence opt-in. "auto" enables it
-    # only for maps of >= 128² cells, the measured crossover where the
-    # smaller footprint wins (+12 % at 128², -12 % at 64²; PERF.md round 5)
-    # — for deployments that know their maps are nav2 raw-grid sourced.
+    # only for maps of >= 128² cells (ops.costmap.U8_AUTO_MIN_CELLS) — for
+    # deployments that know their maps are nav2 raw-grid sourced.
     solver_costmap_u8: "bool | str" = False
     # Lockstep-tail compaction for the BATCHED solve paths (MpcEngine
     # .batch_step / batch_simulate): after `solver_compact_after` full-batch
@@ -174,13 +172,10 @@ class MpcConfig:
     # counts exact; 0 disables. Applied only when the batch is at least
     # `solver_compact_min_batch` (below that the tail is cheaper than the
     # gather/scatter plumbing).
-    # DEFAULT OFF (0) since round 8: the k1=8/frac=1/16 point that won at the
-    # round-2 kernels (197.6k vs 181.8k solves/s) LOSES at the current
-    # Pallas-QP kernels — re-measured 392.7k vs 446.1k uncompacted at the
-    # default program (cap 40, single-phase LS, batch 4096; PERF.md round 8).
-    # The per-iteration cost collapsed ~4x since the tuning, so the
-    # gather/scatter no longer amortizes. The knob remains for future
-    # operating points with fatter tails.
+    # DEFAULT OFF (0): it lost to the plain lockstep at the default program
+    # on the engine's first backend once the per-iteration cost fell; not
+    # measured on a GPU. The knob remains for operating points with fatter
+    # tails.
     solver_compact_after: int = 0
     solver_compact_frac: float = 0.0625
     solver_compact_min_batch: int = 256
@@ -194,18 +189,18 @@ class MpcConfig:
     # point, at ANY operating point (the fixed-k1 scheme auto-disables when
     # max_iters <= k1, e.g. the cap-8 bench point). Per-lane math identical;
     # XLA fusion may reassociate float ops (~1e-6, like the fixed scheme).
-    # MEASURED (round 8, TPU v5e, batch 4096, cap 8): LOSES 3-7 % vs the
-    # plain lockstep while — the warm alive-set does not collapse below the
-    # compact size early enough to amortize the batch-level restructuring
-    # (see PERF.md round-8 alive-count histogram). Kept available for
-    # operating points with fatter iteration tails; default off. Ignored
+    # It lost to the plain lockstep while on the engine's first backend (the
+    # warm alive-set did not collapse below the compact size early enough
+    # to amortize the batch-level restructuring); not measured on a GPU.
+    # Kept available for operating points with fatter iteration tails;
+    # default off. Ignored
     # (plain path) when solver_costmap_patch > 0: the restructured body
     # would re-trace the per-solve patch extraction every batch-level trip
     # (sqp.make_sqp_solver_batched).
     solver_compact_adaptive: bool = False
     # Armijo line-search wave width: candidates 2^-j evaluated per merit
     # evaluation. >1 amortizes the batched costmap gather's fixed overhead
-    # (~0.125 ms at batch 4096 whether it fetches 3 or 3·K points) over K
+    # (whatever the number of points it fetches) over K
     # halving candidates; selected alphas are bit-identical to sequential
     # backtracking (first accepted candidate in halving order). 1 = classic
     # sequential halving.
@@ -218,7 +213,7 @@ class MpcConfig:
     # classic halving; steeper (e.g. 0.25) reaches small steps in half the
     # trips at coarser alpha granularity (changes which alpha is accepted =>
     # changed solutions; operating points that deviate from the defaults need
-    # the PERF.md fidelity study, like solver_max_iters=8).
+    # a fidelity study, like solver_max_iters=8).
     solver_ls_backtrack: float = 0.5
     solver_max_backtracks: int = 16
     # Two-phase schedule: after `solver_ls_coarse_after` rejected candidates
@@ -228,7 +223,7 @@ class MpcConfig:
     # while the DEPTH of the schedule is set by reject-everything episodes at
     # the nonsmooth control kink, which burn lockstep trips for the whole
     # batch; coarsening only the deep tail cuts those trips at almost no
-    # solution drift (measured: see PERF.md round-3 line-search study).
+    # solution drift (cmd-diff p99 0.0039 m/s vs the single-phase program).
     solver_ls_coarse_after: int = 0
     solver_ls_coarse_factor: float = 0.25
     # Per-lane warm-started initial step: the line search starts each outer
@@ -239,7 +234,7 @@ class MpcConfig:
     # (alpha recovers at 2x per iteration), so solutions change: operating
     # points enabling this need the sweep_ls fidelity gate. Off by default.
     solver_ls_warm_alpha: bool = False
-    # Quadratic-interpolation backtracking (round-4 eval-count lever): on a
+    # Quadratic-interpolation backtracking (an eval-count lever): on a
     # rejected candidate the next alpha minimizes the 1-D quadratic through
     # (phi(0), dphi(0), phi(alpha)) instead of multiplying by the fixed
     # schedule factor, safeguarded to [0.1·alpha, 0.5·alpha] (Nocedal&Wright
@@ -247,15 +242,9 @@ class MpcConfig:
     # lanes that set the lockstep trip count) can land in fewer trips, but
     # accepted alphas leave the fixed grid, so solutions change: operating
     # points enabling this need the sweep_ls fidelity gate (cmd-diff p99
-    # <= 0.004, lanes<0.01 >= 0.9). Off by default; A/B recorded in PERF.md.
-    # BATCH ENVELOPE (round-5 A/B, fleet combo, min-of-reps): +1.5 % at
-    # batch 4096 (636.6k vs 626.9k) but -2.8 % at 8192 (482.5k vs 496.4k)
-    # and -4.6 % at 16384 (488.0k vs 511.4k) — above ~8k lanes the extra
-    # per-trip interpolation arithmetic outweighs the trips it saves, while
-    # the 4096->8192 roll-off itself is batch scaling (present with the
-    # knob off too). fleet_config ships it on for its <=4096-lane target;
-    # turn it OFF for fleets >=8192 lanes. Batch-1 device latency is
-    # unaffected (0.72 ms p50 either way, PERF.md round 11b).
+    # <= 0.004, lanes<0.01 >= 0.9). Off by default. Its speed gain depends
+    # on the batch (more lanes, more interpolation arithmetic per trip):
+    # where it turns into a loss on a GPU is not measured yet (PERF.md).
     solver_ls_quad_interp: bool = False
     # Compatibility quirks toggle.
     compat: CompatConfig = dataclasses.field(default_factory=CompatConfig)
@@ -293,41 +282,37 @@ def default_config() -> MpcConfig:
     fidelity (max_iters=40, single-phase fine-grid Armijo). This is the
     bit-tolerant-SLSQP-parity operating point — the project's north-star
     contract (BASELINE.md) — and it is deliberately NOT the fastest one:
-    the two-phase line-search schedule + iteration cap measured +52 % on the
-    fleet bench (596k vs 391k solves/s/chip, PERF.md) at a command-fidelity
-    cost of p99 0.0039 m/s vs this default program. Parity-by-default keeps
-    every oracle/golden gate exact; deployments that want the measured fast
+    the two-phase line-search schedule + iteration cap trade a
+    command-fidelity cost of p99 0.0039 m/s vs this default program for
+    fewer lockstep trips. Parity-by-default keeps
+    every oracle/golden gate exact; deployments that want the fast
     point opt in explicitly via `fleet_config()`."""
     return MpcConfig()
 
 
 def fleet_config() -> MpcConfig:
-    """The measured fleet-throughput operating point — what bench.py runs.
+    """The fleet-throughput operating point — what bench.py and
+    chip_smoke.py run.
 
-    Differences from `default_config()`, each with its PERF.md study:
+    Differences from `default_config()`, each with its fidelity study:
     - solver_max_iters=8: warm lanes converge in <=4 iterations; capped
       lanes warm-start from the raw solution next tick exactly like the
       reference tolerates SLSQP failure (py:397-400). Command diff vs the
       cap-40 program: p99 0.0038 m/s, goal-distance distribution identical
-      to 4 decimals (PERF.md cap sweep).
+      to 4 decimals.
     - two-phase Armijo (max_backtracks=7, coarse_after=2, factor 1/16):
       accepted alphas stay on the fine 0.5 grid; only reject-everything
-      episodes at the nonsmooth control kink coarsen. +16-19 % at p99
-      0.0039 / 91.5 % lanes within 0.01 (round-3 line-search study).
-    - solver_costmap_u8="auto": uint8 gather source for >=128² maps (the
-      measured crossover; value-exact for nav2 raw-grid maps).
-    - solver_ls_quad_interp=True: quadratic-interpolation backtracking.
-      Measured at this operating point: 636.6k vs 626.9k solves/s (+1.5 %)
-      AND tighter fidelity (cmd-diff p99 0.0021 vs 0.0039, lanes<0.01
-      0.938 vs 0.917, unconverged 0.42 % vs 0.44 %) — the interpolated
-      alpha both accepts earlier and lands nearer the cap-40 solution
-      (round-4 A/B, scripts/round4_batch.sh step 4). The win is
-      batch-bounded: at >=8192 lanes it measures -2.8 to -4.6 % (round-5
-      envelope A/B; see the knob's field comment) — set it False for
-      fleets that size.
-    (Adaptive lockstep compaction was measured at this point and LOSES
-    3-7 % — the warm alive-set does not collapse early enough to pay for
-    the batch-level loop restructuring; PERF.md round 8 — so it stays off.)
+      episodes at the nonsmooth control kink coarsen. p99 0.0039 m/s /
+      91.5 % lanes within 0.01 of the single-phase program.
+    - solver_costmap_u8="auto": uint8 gather source for >=128² maps
+      (value-exact for nav2 raw-grid maps).
+    - solver_ls_quad_interp=True: quadratic-interpolation backtracking,
+      with tighter fidelity than the fixed schedule (cmd-diff p99 0.0021
+      vs 0.0039, lanes<0.01 0.938 vs 0.917) — the interpolated alpha both
+      accepts earlier and lands nearer the cap-40 solution. Its speed gain
+      is batch-bounded (see the knob's field comment).
+    (Adaptive lockstep compaction stays off: see solver_compact_adaptive.)
+    The speed of each lever on a GPU is not measured yet (PERF.md).
 
     Single-solve commands remain within the fidelity gates above but are NOT
     bit-parity with scipy SLSQP — use default_config() for that contract.
@@ -343,35 +328,31 @@ def fleet_config() -> MpcConfig:
 
 
 def product_config() -> MpcConfig:
-    """The measured PRODUCT-mode operating point: every reference quirk off
+    """The PRODUCT-mode operating point: every reference quirk off
     (smooth bilinear costmap term, true predicted footprint, wrapped angles)
     on the fleet solver preset, with ONE solver knob flipped — the line
     search runs as a single fused candidate WAVE (`parallel_line_search`)
     instead of sequential backtracking.
 
-    Why the flip (round-5 A/B, batch 4096, map 64, TPU v5e): the smooth
-    objective's merit evaluation is expensive (a per-step predicted
-    footprint — 4 edges x 16 boundary samples, one-hot MXU contractions —
-    plus bilinear point costs), so the sequential Armijo loop's ~7
-    lockstep trips per SQP iteration dominate the product solve. One wave
-    evaluates all 7 candidates in a single widened eval (~5x one candidate,
-    not 7x — the contractions amortize) and selects the SAME alpha
-    sequential halving would (first accepted in schedule order):
-    **64.2k vs 42.2k solves/s (+52 %)**. Parity mode keeps sequential +
-    quad-interp: its hoisted-sampler merit eval is so cheap that a 7-wide
-    wave costs more than the trips it saves (round-2/3 line-search study).
+    Why the flip: the smooth objective's merit evaluation is expensive (a
+    per-step predicted footprint — 4 edges x 16 boundary samples — plus
+    bilinear point costs), so the sequential Armijo loop's ~7 lockstep
+    trips per SQP iteration dominate the product solve. One wave evaluates
+    all 7 candidates in a single widened eval and selects the SAME alpha
+    sequential halving would (first accepted in schedule order). Parity
+    mode keeps sequential + quad-interp: its hoisted-sampler merit eval is
+    so cheap that a 7-wide wave costs more than the trips it saves.
     quad-interp is off here because it is mutually exclusive with the wave
-    (and its fidelity study was parity-only).
+    (and its fidelity study was parity-only). Neither choice has been
+    re-measured on a GPU (PERF.md).
 
-    Second lever (round-5 A/B): set `solver_costmap_patch` to hoist ONE
+    Second lever: set `solver_costmap_patch` to hoist ONE
     patch extraction per solve — every bilinear point cost and footprint
     boundary sample then contracts over the (P, P) window instead of the
     full map (ops.costmap.ProductPatchSampler; values bit-identical inside
     the coverage guarantee at solver_patch_exact_picks=True — this preset
-    trades to backend-precision picks, see the third lever below).
-    Measured on top of the wave: 64.2k -> 113.9k
-    solves/s at map-64 (+78 %) and 47.9k -> 112.8k at map-128 (+135 %) —
-    the product solve becomes map-size-independent. The halfwidth is in
+    trades to backend-precision picks, see the third lever below), so the
+    product solve's cost becomes map-size-independent. The halfwidth is in
     CELLS and depends on resolution + footprint, so the preset cannot bake
     it; size it with
 
@@ -384,14 +365,13 @@ def product_config() -> MpcConfig:
 
     (too small is conservative, not unsafe: out-of-patch reads are lethal).
 
-    Third lever (round-5 review follow-up): `solver_patch_exact_picks=False`
-    — the patch sampler's in-loop one-hot picks run at the backend's fast
-    matmul precision instead of Precision.HIGHEST: **+34 %** (76.9k ->
-    103.0k at the bench product point). On TPU picked cost values round to
-    bf16 (≤2^-9 relative); CPU stays bit-exact. Safe here because the
-    smooth objective has no exact-equality semantics and the preset's
-    quality rows were measured at this setting; the library default stays
-    True (exact).
+    Third lever: `solver_patch_exact_picks=False` — the patch sampler's
+    in-loop one-hot picks run at the backend's default matmul precision
+    instead of Precision.HIGHEST. On an NVIDIA GPU that is TF32: picked
+    cost values round to 10 mantissa bits (≤2^-11 relative); CPU stays
+    bit-exact. Meant for the smooth objective, which has no exact-equality
+    semantics; chip_smoke.py prints product-mode goal capture at this
+    setting. The library default stays True (exact).
 
     Use with `parity=False` engines/sims:
         cfg = product_config()
@@ -403,13 +383,11 @@ def product_config() -> MpcConfig:
     return base.replace(
         parallel_line_search=True,
         solver_ls_quad_interp=False,
-        # Fast (backend-default) matmul precision for the patch sampler's
-        # in-loop picks: +34 % measured (76.9k -> 103.0k at batch 4096,
-        # map 64; PERF.md round 11f). On TPU picked cost values round to
-        # bf16 (≤2^-9 relative) — immaterial for the smooth objective,
-        # whose quality gates were measured at this setting; CPU remains
-        # bit-exact. Set True to restore device bit-identity with the
-        # full-map samplers at the measured cost.
+        # Backend-default matmul precision for the patch sampler's in-loop
+        # picks: TF32 on an NVIDIA GPU (≤2^-11 relative rounding of picked
+        # costs) — meant for the smooth objective; CPU remains bit-exact.
+        # Set True to restore device bit-identity with the full-map
+        # samplers.
         solver_patch_exact_picks=False,
         compat=_dc.replace(
             base.compat, buggy_odom_yaw=False, footprint_alias_noop=False,

@@ -4,7 +4,7 @@ The reference's deployment unit is the `NeoMpcPlanner` plugin, whose public
 interface is the nav2_core::Controller virtual API (include/NeoMpcPlanner.h:
 72-122): configure / activate / deactivate / cleanup / setPlan /
 computeVelocityCommands / setSpeedLimit. This class offers the same lifecycle
-and per-tick API over the TPU engine so a reference user can port call sites
+and per-tick API over the device engine so a reference user can port call sites
 1:1 — without ROS, and with the whole tick running as one device step instead
 of the plugin→DDS→scipy round trip.
 
@@ -268,9 +268,8 @@ class NeoMpcController:
         self._state = out.state
         self.last_result = out
         # Device arrays, NOT fetched here: int() would add two scalar
-        # device->host round trips to every tick (a full link RTT each on
-        # tunneled backends) for debug-only data; transformed_plan()
-        # converts lazily.
+        # device->host round trips (each a sync with the device) to every
+        # tick for debug-only data; transformed_plan() converts lazily.
         self._last_window = (out.plan_window_begin, out.plan_window_end)
         if bool(out.plan_empty):
             raise ControllerException("Resulting plan has 0 poses in it.")  # cpp:131

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
@@ -25,13 +24,14 @@ from .ops.footprint import Footprint, footprint_cost, transform_footprint
 from .ops.objective import Scenario, make_objective
 from .ops.pursuit import Plan, pursuit_tick
 from .ops.rollout import rollout
+from .utils import struct
 
 
 __all__ = ["ControlState", "StepResult", "init_state", "solve_step",
            "controller_step", "make_batched_controller_step", "MpcEngine"]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class ControlState:
     """Per-scenario persistent control-loop memory (SURVEY.md §5 checkpoint row)."""
 
@@ -390,8 +390,9 @@ class MpcEngine:
         # math to vmap(controller_step); see make_batched_controller_step).
         self._batch_step = jax.jit(make_batched_controller_step(cfg, parity))
         # The single-robot path routes through the batch-1 vmapped executable:
-        # identical math, but the unbatched scalar program triggers an XLA-TPU
-        # compile-time pathology (minutes) that the vmapped one does not.
+        # identical math. It was introduced for a compile-time pathology of
+        # the unbatched scalar program on the engine's first backend; whether
+        # a GPU still needs it is an open ROADMAP item.
         def _step1(*args):
             out = self._batch_step(*jax.tree.map(lambda x: x[None], args))
             return jax.tree.map(lambda x: x[0], out)

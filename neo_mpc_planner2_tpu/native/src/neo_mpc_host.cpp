@@ -1,6 +1,6 @@
 // neo_mpc_host — native single-robot host front-end (C ABI).
 //
-// TPU-native re-design of the reference's C++ controller plugin (Layer A,
+// Device-engine re-design of the reference's C++ controller plugin (Layer A,
 // src/NeoMpcPlanner.cpp:54-380) with ROS removed: the host owns the stateful
 // per-robot path — global plan + consumed prefix (cpp:127, :274-281), the
 // slow-down hysteresis (cpp:221-232), lookahead selection (cpp:157-189), the

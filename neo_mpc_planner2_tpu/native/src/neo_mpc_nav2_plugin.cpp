@@ -3,7 +3,7 @@
 // The reference's Layer-A deliverable is a pluginlib-exported controller that
 // nav2's controller_server loads in-process (src/NeoMpcPlanner.cpp:380
 // PLUGINLIB_EXPORT_CLASS, neo_mpc_planner_plugin.xml:2). This file fills that
-// plugin slot for the TPU engine: a thin ROS adapter that delegates
+// plugin slot for the device engine: a thin ROS adapter that delegates
 //   - ALL per-tick geometry (plan pruning, carrot selection, slow-down
 //     hysteresis, footprint collision gate, request marshalling) to the
 //     existing C-ABI host (neo_mpc_host.cpp — the de-ROS'd twin of

@@ -1,6 +1,6 @@
 """Footprint polygon collision cost on device.
 
-TPU-native replacement for two reference pieces:
+Device replacement for two reference pieces:
 
 - nav2 `FootprintCollisionChecker::footprintCostAtPose` called from the C++
   plugin on the raw 0-255 scale (NeoMpcPlanner.cpp:218-219, :332-333);
@@ -22,18 +22,18 @@ footprints of different robots batch together.
 
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from .costmap import Costmap, cost_at_cell, cost_at_world, cost_at_world_onehot
 from .se2 import se2_apply
+from ..utils import struct
 
 __all__ = ["Footprint", "transform_footprint", "footprint_cost",
            "footprint_cost_at_pose", "line_cost_exact", "required_edge_samples"]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Footprint:
     """Padded polygon. vertices: (V, 2); n_valid: () int32 (<= V)."""
 

@@ -17,7 +17,6 @@ as a pure, jit/vmap/grad-able function of the flat decision vector
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 
 from ..config import MpcConfig
@@ -25,6 +24,7 @@ from .costmap import Costmap, cost_at_world, cost_at_world_bilinear
 from .footprint import Footprint, footprint_cost, transform_footprint
 from .rollout import rollout
 from .se2 import wrap_angle
+from ..utils import struct
 
 __all__ = [
     "Scenario", "Weights", "Limits", "resolve_weights", "resolve_limits",
@@ -33,7 +33,7 @@ __all__ = [
 ]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Weights:
     """Per-scenario cost-weight overrides — the BASELINE.json "weight grids"
     batch axis. Each field is a scalar (or batched scalar under vmap); a
@@ -69,7 +69,7 @@ class Weights:
         return Weights(*flat)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Limits:
     """Runtime velocity/acceleration limits — the dynamic-reconfigure axis.
 
@@ -106,7 +106,7 @@ class Limits:
                       max_vel_trans=self.max_vel_trans * s, acc=self.acc)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Scenario:
     """One solve request — the device-resident analogue of the
     neo_srvs2/srv/Optimizer request (packed at NeoMpcPlanner.cpp:240-246)

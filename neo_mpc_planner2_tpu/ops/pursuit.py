@@ -21,13 +21,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import flax.struct
 import jax.numpy as jnp
 
 from ..config import MpcConfig
 from .costmap import Costmap
 from .footprint import Footprint, footprint_cost_at_pose
 from .se2 import se2_inverse
+from ..utils import struct
 
 __all__ = ["Plan", "PursuitResult", "pursuit_tick", "SLOW_DOWN_COST_GATE", "LETHAL_GATE"]
 
@@ -40,16 +40,14 @@ LETHAL_GATE = 1.0
 _BIG = 1e30
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Plan:
     """Global plan in the map frame; (P,) component arrays + () int32 n_valid.
 
-    Stored component-wise (px/py/pyaw) rather than as one (P, 3) array: TPU
-    tiles the trailing two dims to (8, 128), so a batched (B, P, 3) plan pads
-    3 -> 128 — a 42× HBM tax every time the per-tick base-frame transform
-    materializes it (0.21 ms/tick at batch 4096, round-3 trace). Component
-    (B, P) arrays pad P -> 128 only. Use `.poses` for the (P, 3) view
-    (host-side / convenience; it stacks on demand).
+    Stored component-wise (px/py/pyaw) rather than as one (P, 3) array, so
+    each batched component is one dense (B, P) buffer and the per-tick
+    base-frame transform reads no 3-wide minor dimension. Use `.poses` for
+    the (P, 3) view (host-side / convenience; it stacks on demand).
     """
 
     px: jnp.ndarray
@@ -133,8 +131,8 @@ def pursuit_tick(
     idx = jnp.arange(P, dtype=jnp.int32)
     alive = (idx >= start) & (idx < plan.n_valid)
 
-    # Closest pose (cpp:85-90). Component-wise on the (P,) plan arrays — the
-    # stacked (P, 2/3) forms tile-pad the minor dim 42× on TPU (see Plan).
+    # Closest pose (cpp:85-90). Component-wise on the (P,) plan arrays (see
+    # Plan).
     dx = plan.px - robot_pose[0]
     dy = plan.py - robot_pose[1]
     d = jnp.sqrt(dx * dx + dy * dy)

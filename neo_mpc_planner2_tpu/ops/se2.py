@@ -84,7 +84,7 @@ def se2_compose(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 def world_to_body(robot_pose: jnp.ndarray, world_pose: jnp.ndarray) -> jnp.ndarray:
     """Express world_pose [.., 3] in the robot's base frame.
 
-    TPU-native stand-in for the tf2 transform of the global plan into
+    Device stand-in for the tf2 transform of the global plan into
     costmap_ros_->getBaseFrameID() (NeoMpcPlanner.cpp:109-124).
     """
     return se2_compose(se2_inverse(robot_pose), world_pose)

@@ -22,7 +22,8 @@ from scipy.optimize import minimize
 
 from .config import MpcConfig
 
-__all__ = ["NpCostmap", "NpScenario", "OracleServer", "oracle_objective"]
+__all__ = ["NpCostmap", "NpScenario", "OracleServer", "oracle_objective",
+           "ParityStats", "check_against_oracle"]
 
 
 @dataclasses.dataclass
@@ -320,3 +321,98 @@ class OracleServer:
             "fun": float(res.fun),
             "nit": int(res.nit),
         }
+
+
+# Command agreement (m/s, max over the 3 components) that counts as a match.
+MATCH_TOL = 1e-2
+
+
+@dataclasses.dataclass
+class ParityStats:
+    """Device-vs-oracle agreement over the checked scenarios."""
+
+    checked: int
+    matched: int               # commands agreeing within MATCH_TOL
+    worst_gap: float           # max device-minus-oracle objective
+    worst_unmatched_gap: float  # the same over unmatched commands only
+    fp_fired: int              # scenarios where the footprint branch fired
+    fp_nonzero: int            # ... whose device command was not zero
+
+
+def check_against_oracle(cfg: MpcConfig, sb, footprint_np=None, lanes=None,
+                         skip_lethal: bool = True) -> ParityStats:
+    """Drive the device pipeline over a ScenarioBatch the way a deployment
+    does and compare its commands with the oracle fed identical requests.
+
+    The device side is one vmapped pursuit dispatch and ONE vmapped
+    solve_step dispatch over the WHOLE batch (so a fleet-sized batch takes
+    the batched solver's fleet path); the oracle then solves `lanes`
+    (default: all) one at a time. footprint_np: the (V, 2) polygon the
+    oracle uses; default each lane's own valid vertices. Lanes whose plan
+    window is empty are skipped, and so are lethal-gated lanes unless
+    skip_lethal=False (the plugin throws before the service call there; a
+    direct service client reaches the server-side branch).
+    """
+    import jax
+    import jax.numpy as jnp
+
+    from .engine import init_state, solve_step
+    from .ops.objective import Scenario, make_objective
+    from .ops.pursuit import pursuit_tick
+    from .sqp import make_sqp_solver
+
+    n = sb.robot_pose.shape[0]
+    tick = jax.jit(jax.vmap(lambda plan, pose, cm, fp: pursuit_tick(
+        cfg, plan, jnp.int32(0), jnp.asarray(False), pose, cm, fp)))
+    pr = tick(sb.plan, sb.robot_pose, sb.costmap, sb.footprint)
+
+    goal = sb.plan.poses[jnp.arange(n), sb.plan.n_valid - 1]
+    scen = jax.vmap(lambda pose, carrot, g, vel, fp, cm, sw: Scenario.create(
+        pose, carrot, g, vel, fp, cm, switch_opt=sw, control_interval=1 / 30))(
+        sb.robot_pose, pr.carrot_pose, goal, sb.current_vel, sb.footprint,
+        sb.costmap, pr.closer_to_goal)
+    solver = make_sqp_solver(cfg, make_objective(cfg), ftol=1e-8,
+                             max_iters=300)
+    st = jax.tree.map(lambda x: jnp.broadcast_to(x, (n,) + x.shape),
+                      init_state(cfg))
+    step = jax.jit(jax.vmap(lambda s, sc: solve_step(
+        cfg, s, sc, jnp.float32(1 / 30), solver=solver)))
+    out = step(st, scen)
+
+    cmd_dev = np.asarray(out.cmd_vel, float)
+    fun_dev = np.asarray(out.fun, float)
+    plan_empty = np.asarray(pr.plan_empty)
+    lethal = np.asarray(pr.lethal)
+    carrot = np.asarray(pr.carrot_pose, float)
+    closer = np.asarray(pr.closer_to_goal)
+    goal_np = np.asarray(goal, float)
+    fp_verts = np.asarray(sb.footprint.vertices, float)
+    fp_valid = np.asarray(sb.footprint.n_valid)
+
+    stats = ParityStats(0, 0, -np.inf, -np.inf, 0, 0)
+    for i in (range(n) if lanes is None else lanes):
+        if bool(plan_empty[i]) or (skip_lethal and bool(lethal[i])):
+            continue
+        cm = jax.tree.map(lambda x: x[i], sb.costmap)
+        npcm = NpCostmap(np.asarray(cm.data, float),
+                         np.asarray(cm.origin, float), float(cm.resolution))
+        fp = (fp_verts[i, :fp_valid[i]] if footprint_np is None
+              else footprint_np)
+        nps = NpScenario(np.asarray(sb.robot_pose[i], float), carrot[i],
+                         goal_np[i], np.asarray(sb.current_vel[i], float),
+                         fp, npcm, switch_opt=bool(closer[i]),
+                         control_interval=1 / 30)
+        cmd_o, diag = OracleServer(cfg).solve(nps, 1 / 30)
+        if diag["collision_footprint"]:
+            stats.fp_fired += 1
+            stats.fp_nonzero += int(np.any(cmd_dev[i] != 0.0))
+        gap = fun_dev[i] - diag["fun"]
+        stats.worst_gap = max(stats.worst_gap, gap)
+        stats.checked += 1
+        if np.abs(cmd_dev[i] - cmd_o).max() < MATCH_TOL:
+            stats.matched += 1
+        else:
+            # Distinct local minima of the piecewise-constant terms are
+            # legitimate ONLY if the device objective is a near-tie or better.
+            stats.worst_unmatched_gap = max(stats.worst_unmatched_gap, gap)
+    return stats

@@ -1,18 +1,20 @@
-"""Scenario-batch sharding over a TPU mesh.
+"""Scenario-batch sharding over the GPUs of a host.
 
 The reference has no distributed machinery at all (SURVEY.md §2.4) — its
-"transport" is one blocking DDS service call (NeoMpcPlanner.cpp:248-250). The
-scale axes here come from BASELINE.json: ≥4096 scenarios per chip batched per
-step, sharded over chips/hosts with ≥80 % linear solves/s scaling.
+"transport" is one blocking DDS service call (NeoMpcPlanner.cpp:248-250).
+Here a fleet batch is split over the cards: MPC scenarios are independent,
+so each card steps its own shard and the only communication is the fleet
+metrics' reduction.
 
 Design (the standard JAX recipe): a 2-D ('host', 'chip') mesh; the scenario
 batch is sharded over both axes flattened; every per-scenario input/state leaf
 carries NamedSharding(P(('host', 'chip'))) on its leading axis; the engine step
-runs under jit, XLA partitions it, and the returned fleet metrics are the only
-cross-device reduction (psum over ICI within a host slice, DCN across hosts).
-There is no other communication — MPC scenarios are embarrassingly parallel,
-which is exactly why the design goal is keeping XLA from inserting anything
-else.
+runs under jit + shard_map, and the returned fleet metrics are the only
+cross-device reduction. The mesh follows the algorithm alone: the cards of
+one host are joined all to all (NVLink), so one process drives them with
+`make_mesh(hosts=1)` — a flat mesh — and a multi-host fleet folds its
+process count into the 'host' axis. The design goal is keeping XLA from
+inserting any other communication.
 """
 
 from __future__ import annotations
@@ -46,9 +48,8 @@ def make_mesh(devices: Sequence[jax.Device] | None = None,
     n = len(devices)
     h = hosts if hosts is not None else max(jax.process_count(), 1)
     if n % h != 0:
-        # Round 1 silently folded to a 1-host mesh here — a wrong-topology
-        # footgun on real pods (VERDICT round-1): sharding would quietly stop
-        # using the host axis. Fail loudly instead.
+        # Silently folding to a 1-host mesh here would quietly stop using
+        # the host axis on a multi-host fleet. Fail loudly instead.
         raise ValueError(
             f"{n} devices do not tile over {h} hosts; pass an explicit "
             f"`hosts` that divides the device count")
@@ -134,8 +135,8 @@ class ShardedEngine:
         # step on its LOCAL shard, so the solver's lockstep-tail compaction
         # (sqp.make_sqp_solver_batched) gathers/scatters straggler lanes
         # shard-locally — no cross-device data movement from the re-batching.
-        # The only collectives are the metric pmean/pmax reductions (ICI
-        # within a host row, DCN across hosts). check_vma=False: the vma
+        # The only collectives are the metric pmean/pmax reductions.
+        # check_vma=False: the vma
         # tracker taints lax.scan carries seeded from in-body constants
         # (rollout's zero pose) even though the body is per-shard pure; the
         # P() out_spec for the metrics is made true by the pmean/pmax.

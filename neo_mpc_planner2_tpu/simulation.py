@@ -59,8 +59,7 @@ def rolling_view(world: Costmap, pose: jnp.ndarray, cells: int) -> Costmap:
     BOUNDS METADATA on the world map (Costmap.win_lo/win_cells) instead of a
     materialized slice. Samplers read the world map's (hoisted) flat view in
     place, so the per-tick per-lane dynamic_slice copy + re-flatten
-    disappears (the rolling regime ran at 46 % of the static-map rate with
-    the slice; PERF.md round 8). world: any leading batch dims; pose
+    disappears. world: any leading batch dims; pose
     broadcasts accordingly when vmapped."""
     H, W = world.data.shape[-2], world.data.shape[-1]
     mx, my = world_to_map(world, pose[0], pose[1])
@@ -229,8 +228,8 @@ def batch_simulate(cfg: MpcConfig, scenario_batch, n_ticks: int,
     step = make_batched_controller_step(cfg, parity=parity,
                                         solver_batch=solver_batch)
     # The map is fixed for the whole run: materialize the flat view ONCE
-    # outside the tick scan (inside, XLA re-runs the relayout every tick —
-    # a 64 MB copy per tick at batch 4096; round-3 trace).
+    # outside the tick scan (inside, XLA can re-run the relayout every tick —
+    # a 64 MB copy per tick at batch 4096).
     costmap = sb.costmap
     world_cells = costmap.data.shape[-2] * costmap.data.shape[-1]
     sampled_cells = (window_cells * window_cells
@@ -315,9 +314,8 @@ def batch_simulate(cfg: MpcConfig, scenario_batch, n_ticks: int,
             blob = jnp.clip(upd_a[:, None, None]
                             * jnp.exp(-d2 / (2 * BLOB_SIGMA2)), 0.0, 1.0)
             # One-hot window extraction, not vmapped dynamic_slice: the
-            # batched slice lowers to a latency-bound gather (measured
-            # 8 ms/tick of the regime's 9 — the content synthesis dwarfed
-            # the update itself; /tmp probe, PERF.md round 10).
+            # batched slice lowers to a gather (see extract_window_onehot;
+            # the plain form is still to A/B on a GPU).
             base_win = jax.vmap(
                 lambda d, y, x: extract_window_onehot(d, y, x, U, U))(
                 base_data, cy, cx)

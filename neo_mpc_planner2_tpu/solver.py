@@ -212,8 +212,8 @@ def prox_fista(
 
         # Backtracking on the smooth part: grow L until
         # f(p) ≤ f(y) + ⟨∇f(y), p−y⟩ + L/2‖p−y‖² at p = prox(y − ∇f/L, L).
-        # Two lockstep-vmap rules (same fixes as the SQP line search,
-        # PERF.md round 2): (1) gate on ~s.done — under vmap a DONE lane
+        # Two lockstep-vmap rules (same fixes as the SQP line search):
+        # (1) gate on ~s.done — under vmap a DONE lane
         # still executes this inner loop and its (discarded) iterates can
         # demand the full backtrack budget, inflating every alive lane's
         # trip count; (2) carry f_smooth(p) so each trip evaluates the

@@ -1,9 +1,9 @@
-"""Dump the TPU-compiled HLO of the headline sim and locate named fusions.
+"""Dump the compiled HLO of the headline sim and locate named fusions.
 
 The trace gives device-op names (fusion.362, slice_reduce_fusion.50, ...);
 this maps them back to source via the HLO metadata op_name/source_file.
 
-  PYTHONPATH=/root/repo python scripts/dump_hlo.py --find slice_reduce_fusion.50 fusion.362
+  python scripts/dump_hlo.py --find slice_reduce_fusion.50 fusion.362
 """
 
 from __future__ import annotations

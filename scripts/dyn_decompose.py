@@ -12,8 +12,8 @@ synthesis-only program:
   synthesis-only  : the blob_maps + flatten work alone, scanned over ticks
                     (attribution for the dynamic row)
 
-Prints one JSON line per program with ms/tick; run on the TPU (single
-process) via scripts/round4_batch.sh.
+Prints one JSON line per program with ms/tick; run on the GPU (single
+process): python scripts/dyn_decompose.py
 """
 
 from __future__ import annotations

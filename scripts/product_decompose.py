@@ -1,7 +1,7 @@
 """Attribute the product-mode (prox-FISTA + smooth objective) quality drop at
-map-128 (round-4 verdict item 6): BENCH_extra_r04 measured goal_reached
-0.9431 (map-64) -> 0.9133 (map-128), p50 2.7 -> 3.8 cm, mean iters
-2.7 -> 3.5, with no decomposition and no blocked-lane classification.
+map-128: goal capture fell about 3 points from map-64 to map-128, with a
+larger median final distance and more iterations, and no decomposition or
+blocked-lane classification said why.
 
 Candidate causes, isolated one per pass (same quality suite recipe as
 bench.py: seed 1, 0.7-1.1 m plans, cleared corridor, plan-centered window):
@@ -24,7 +24,7 @@ All passes also classify non-reachers via the safety latch (collision |
 lethal at the final tick) — the product_unreached_blocked_frac the parity
 pass has had since round 3 (bench.py quality pass).
 
-Run on TPU (default env, one process):
+Run on the GPU (default env, one process):
   python scripts/product_decompose.py --batch 4096 --ticks 20 \
       --quality-ticks 160
 CPU smoke: JAX_PLATFORMS=cpu with small --batch.

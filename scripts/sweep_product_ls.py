@@ -2,9 +2,8 @@
 
 The shipped product_config uses the fully-parallel Armijo wave
 (`parallel_line_search`): all `max_backtracks` candidates evaluated in one
-widened merit eval every SQP iteration — measured +52 % over sequential
-backtracking in round 5 because the smooth objective's merit eval is
-expensive. But the parallel branch pays the full 7-candidate eval even on
+widened merit eval every SQP iteration, because the smooth objective's
+merit eval is expensive. But the parallel branch pays the full 7-candidate eval even on
 iterations where the FIRST candidate accepts (warm Newton-ish steps) and
 even for done lanes. The chunked wave (`solver_ls_wave=K`) evaluates K
 candidates per lockstep trip with a done-lane short-circuit and stops as
@@ -17,7 +16,7 @@ at the exact bench.py product operating point (fleet preset + bench weights,
 quirks off, hoisted patch sampler), and reports each variant's command
 divergence from the shipped parallel branch on the final tick.
 
-Run on the TPU (single process):  python scripts/sweep_product_ls.py
+Run on the GPU (single process):  python scripts/sweep_product_ls.py
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("NEO_MPC_COMPILE_CACHE", "/tmp/neo_xla_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -77,9 +75,10 @@ def main():
 
     from neo_mpc_planner2_tpu.scenarios import make_scenario_batch
     from neo_mpc_planner2_tpu.simulation import batch_simulate
+    from neo_mpc_planner2_tpu.utils.compile_cache import enable_compile_cache
 
-    def sync(x):
-        return np.asarray(jax.device_get(x[..., :1, 0] if x.ndim > 1 else x))
+    enable_compile_cache()
+    sync = jax.block_until_ready
 
     base = bench_product_cfg()
     sb = make_scenario_batch(base, args.batch, seed=0,

@@ -123,8 +123,9 @@ def test_device_trace_writes(tmp_path):
 
 
 def test_compile_cache_env(tmp_path):
-    """NEO_MPC_COMPILE_CACHE populates a persistent XLA compilation cache
-    (subprocess: the env hook runs at package import)."""
+    """JAX_COMPILATION_CACHE_DIR populates a persistent XLA compilation
+    cache through the entry-point helper, which sets nothing itself when the
+    variable is set (subprocess: JAX reads the variable at import)."""
     import os
     import subprocess
     import sys
@@ -132,10 +133,12 @@ def test_compile_cache_env(tmp_path):
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(JAX_PLATFORMS="cpu", PYTHONPATH=repo_root,
-               NEO_MPC_COMPILE_CACHE=str(tmp_path))
+               JAX_COMPILATION_CACHE_DIR=str(tmp_path))
     code = (
-        "import jax, neo_mpc_planner2_tpu as mpc\n"
-        "assert jax.config.jax_compilation_cache_dir\n"
+        "import jax\n"
+        "from neo_mpc_planner2_tpu.utils.compile_cache import enable_compile_cache\n"
+        f"assert enable_compile_cache() == {str(tmp_path)!r}\n"
+        f"assert jax.config.jax_compilation_cache_dir == {str(tmp_path)!r}\n"
         "jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.0)\n"
         "import jax.numpy as jnp\n"
         "jax.jit(lambda x: (x*3).sum())(jnp.ones((256, 256))).block_until_ready()\n"

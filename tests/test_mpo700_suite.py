@@ -28,7 +28,8 @@ import pytest
 import neo_mpc_planner2_tpu as mpc
 from neo_mpc_planner2_tpu.engine import init_state, solve_step
 from neo_mpc_planner2_tpu.ops.pursuit import pursuit_tick
-from neo_mpc_planner2_tpu.oracle import NpCostmap, NpScenario, OracleServer
+from neo_mpc_planner2_tpu.oracle import (NpCostmap, NpScenario, OracleServer,
+                                         check_against_oracle)
 from neo_mpc_planner2_tpu.scenarios import MPO700_LENGTH, MPO700_WIDTH, make_scenario_batch
 
 MATCH_FRAC_GATE = 0.9   # calibrated vs scipy self-agreement 0.993 (see above)
@@ -60,10 +61,11 @@ def _run_suite(cfg, n, seed, lethal_threshold=None, pose_jitter=0.05,
     """Drive the full device pipeline against the oracle over n scenarios.
 
     Device solves run as ONE vmapped dispatch (the deployment batch shape);
-    the scipy oracle runs per scenario. Returns (checked, matched, worst_gap,
-    fp_fired): matched counts commands agreeing within 1e-2; worst_gap is the
-    max device-minus-oracle objective difference; fp_fired counts scenarios
-    where the footprint branch (py:262-263) actually fired.
+    the scipy oracle runs per scenario (oracle.check_against_oracle).
+    Returns (checked, matched, worst_gap, fp_fired): matched counts commands
+    agreeing within 1e-2; worst_gap is the max device-minus-oracle objective
+    difference; fp_fired counts scenarios where the footprint branch
+    (py:262-263) actually fired.
     """
     from neo_mpc_planner2_tpu.ops.footprint import Footprint
     fp_dev = Footprint.rectangle(chassis[0], chassis[1],
@@ -74,67 +76,14 @@ def _run_suite(cfg, n, seed, lethal_threshold=None, pose_jitter=0.05,
     hl, hw = chassis[0] / 2, chassis[1] / 2
     fp_np = np.array([[hl, hw], [-hl, hw], [-hl, -hw], [hl, -hw]])
 
-    # --- device side: vmapped pursuit + ONE vmapped solve dispatch ---
-    tick = jax.jit(jax.vmap(lambda plan, pose, cm, fp: pursuit_tick(
-        cfg, plan, jnp.int32(0), jnp.asarray(False), pose, cm, fp)))
-    pr = tick(sb.plan, sb.robot_pose, sb.costmap, sb.footprint)
-
-    goal = sb.plan.poses[jnp.arange(n), sb.plan.n_valid - 1]
-    scen = jax.vmap(lambda pose, carrot, g, vel, fp, cm, sw: mpc.Scenario.create(
-        pose, carrot, g, vel, fp, cm, switch_opt=sw, control_interval=1 / 30))(
-        sb.robot_pose, pr.carrot_pose, goal, sb.current_vel, sb.footprint,
-        sb.costmap, pr.closer_to_goal)
-    solver = mpc.make_sqp_solver(cfg, mpc.make_objective(cfg), ftol=1e-8,
-                                 max_iters=300)
-    st = jax.tree.map(lambda x: jnp.broadcast_to(x, (n,) + x.shape),
-                      init_state(cfg))
-    step = jax.jit(jax.vmap(lambda s, sc: solve_step(
-        cfg, s, sc, jnp.float32(1 / 30), solver=solver)))
-    out = step(st, scen)
-
-    cmd_dev = np.asarray(out.cmd_vel, float)
-    fun_dev = np.asarray(out.fun, float)
-    plan_empty = np.asarray(pr.plan_empty)
-    lethal = np.asarray(pr.lethal)
-    carrot = np.asarray(pr.carrot_pose, float)
-    closer = np.asarray(pr.closer_to_goal)
-    goal_np = np.asarray(goal, float)
-
-    checked = matched = fp_fired = 0
-    worst_gap = -np.inf
-    for i in range(n):
-        if bool(plan_empty[i]):
-            continue
-        if skip_lethal and bool(lethal[i]):
-            # End-to-end the plugin throws before the service call; the
-            # footprint-branch suite passes skip_lethal=False to reach the
-            # server-side branch the way a direct service client would.
-            continue
-
-        cm = jax.tree.map(lambda x: x[i], sb.costmap)
-        npcm = NpCostmap(np.asarray(cm.data, float),
-                         np.asarray(cm.origin, float), float(cm.resolution))
-        nps = NpScenario(np.asarray(sb.robot_pose[i], float), carrot[i],
-                         goal_np[i], np.asarray(sb.current_vel[i], float),
-                         fp_np, npcm, switch_opt=bool(closer[i]),
-                         control_interval=1 / 30)
-        srv = OracleServer(cfg)
-        cmd_o, diag = srv.solve(nps, 1 / 30)
-        if diag["collision_footprint"]:
-            fp_fired += 1
-            np.testing.assert_array_equal(cmd_dev[i], np.zeros(3))
-
-        dx = np.abs(cmd_dev[i] - cmd_o).max()
-        gap = fun_dev[i] - diag["fun"]
-        worst_gap = max(worst_gap, gap)
-        checked += 1
-        if dx < 1e-2:
-            matched += 1
-        else:
-            # Distinct local minima of the piecewise-constant terms are
-            # legitimate ONLY if our objective is a near-tie or better.
-            assert gap < gap_tol, (i, dx, gap)
-    return checked, matched, worst_gap, fp_fired
+    stats = check_against_oracle(cfg, sb, footprint_np=fp_np,
+                                 skip_lethal=skip_lethal)
+    # The footprint branch zeroes the command on both sides.
+    assert stats.fp_nonzero == 0, stats
+    # Distinct local minima of the piecewise-constant terms are legitimate
+    # ONLY if our objective is a near-tie or better.
+    assert stats.worst_unmatched_gap < gap_tol, stats
+    return stats.checked, stats.matched, stats.worst_gap, stats.fp_fired
 
 
 def test_suite_commands_match_oracle(suite_cfg):
@@ -388,7 +337,7 @@ def test_suite_long_horizon_sequence_parity(suite_cfg):
     tail = tail_matched / tail_checked
     print(f"\nlong-horizon parity: prefix {pre_matched}/{pre_checked} "
           f"({pre:.3f}), tail {tail_matched}/{tail_checked} ({tail:.3f})")
-    # Study values (TPU, n=20): prefix 1.00, tail 0.85-0.95. Gates leave
+    # Study values (n=20): prefix 1.00, tail 0.85-0.95. Gates leave
     # headroom for the small-n granularity here (tail steps of 1/25).
     assert pre >= 0.9, (pre_matched, pre_checked)
     assert tail >= 0.6, (tail_matched, tail_checked)

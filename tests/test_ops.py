@@ -239,7 +239,7 @@ class TestCostmapFlatView:
 
 class TestExtractWindowOnehot:
     """extract_window_onehot — the gather-free batched dynamic_slice (a
-    vmapped dynamic_slice lowers to a lane-serialized gather on TPU)."""
+    vmapped dynamic_slice lowers to a gather)."""
 
     def test_matches_dynamic_slice(self):
         from neo_mpc_planner2_tpu.ops.costmap import extract_window_onehot

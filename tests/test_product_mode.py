@@ -246,7 +246,7 @@ def test_patch_exact_picks_knob(cfg):
     """product_config ships fast (backend-precision) patch picks; the knob
     plumbs through to the sampler, and on CPU — where every matmul precision
     is f32 — exact and fast solves are bit-identical (the settings may only
-    differ on TPU, where fast picks are bf16-rounded; PERF.md round 11f)."""
+    differ on a GPU, where fast picks run in TF32)."""
     import dataclasses
 
     import neo_mpc_planner2_tpu as mpc

@@ -235,27 +235,25 @@ class TestCholInverse:
         np.testing.assert_allclose(np.diag(got), 1.0 / np.diag(d), rtol=1e-4)
 
     def test_pallas_kernel_interpret(self):
-        """The TPU lane-minor Pallas kernel (the batched vmap-rule fast path;
-        sqp._chol_inverse_pallas_batched) against numpy, in interpret mode —
-        including a batch that is not a multiple of the lane block, so the
-        padded tail is exercised, and a non-default matrix size (m=6, i.e.
-        control_steps=2)."""
-        from neo_mpc_planner2_tpu.sqp import _chol_inverse_pallas_batched
+        """The batched inverse (the custom_vmap rule's lane-minor XLA path,
+        which the batched QP uses) against numpy at the batch and matrix
+        sizes the former lane-block kernel was checked at: a batch that is
+        not a multiple of a lane block, a larger one, and m=6
+        (control_steps=2)."""
+        from neo_mpc_planner2_tpu.sqp import _chol_inverse
 
         rng = np.random.default_rng(13)
         for B, m in ((37, 9), (300, 9), (16, 6)):
             A = rng.normal(size=(B, m, m))
             M = (A @ np.swapaxes(A, -1, -2)
                  + np.eye(m) * 2.0).astype(np.float32)
-            got = np.asarray(_chol_inverse_pallas_batched(
-                jnp.asarray(M), interpret=True))
+            got = np.asarray(jax.vmap(_chol_inverse)(jnp.asarray(M)))
             want = np.linalg.inv(M)
             assert np.abs(got - want).max() < 2e-4 * np.abs(want).max()
 
     def test_vmap_rule_matches_primal_large_batch(self):
-        """The custom_vmap rule (above the 256-lane pallas threshold it would
-        take the kernel path on TPU; on CPU the lane-minor XLA path) agrees
-        with the per-lane primal."""
+        """The custom_vmap rule (the lane-minor XLA path) agrees with the
+        per-lane primal at a fleet-sized batch."""
         from neo_mpc_planner2_tpu.sqp import _chol_inverse
 
         rng = np.random.default_rng(14)
@@ -384,8 +382,8 @@ def test_quad_interp_line_search_converges(cfg, footprint):
     """solver_ls_quad_interp (round-4 eval-count lever): same minimizer class
     as the fixed schedule — commands stay within the fidelity envelope on a
     smooth scenario, the solver converges, and iterate counts stay bounded.
-    (The throughput/fidelity A/B at the fleet operating point is a TPU
-    measurement recorded in PERF.md; this pins CPU correctness.)"""
+    (Its throughput at the fleet operating point is a device measurement;
+    this pins CPU correctness.)"""
     import neo_mpc_planner2_tpu as mpc
 
     data = np.zeros((40, 40))
